@@ -17,7 +17,7 @@ Every assertion is exact (bit-identical f64), not approximate. Runs on any
 backend:
 
     JAX_PLATFORMS=cpu python examples/api_demo.py     # CPU (~1 min)
-    python examples/api_demo.py                       # real TPU
+    python examples/api_demo.py                       # GPU
 
 Reference parity notes: the plaintext path equals Template.distance
 (src/template.rs:43-64), the MPC path equals the reference's
@@ -40,7 +40,7 @@ N_DB, B, N_PARTIES, CHUNK = 1024, 4, 3, 256
 
 def check(cond, what):
     """Exactness checks must survive `python -O` (a bare assert would
-    vanish and the demo-as-test would pass vacuously — ADVICE r2)."""
+    vanish and the demo-as-test would pass vacuously)."""
     if not cond:
         raise RuntimeError(f"api_demo check failed: {what}")
 
@@ -63,7 +63,7 @@ def main():
     qmsk = np.stack([t.mask.data for t in queries])
 
     # ------------------------------------------------- 2. plaintext engine
-    # One fused device pass per batch: int4/int8 MXU matmuls over the
+    # One fused device pass per batch: int8 matmuls over the
     # chunk-scanned DB + exact integer-fraction argmin (no f64 on device).
     print(f"[2] PlaintextEngine: {B} queries vs {N_DB} templates")
     eng = PlaintextEngine(patterns, masks, chunk=CHUNK)

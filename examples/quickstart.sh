@@ -5,9 +5,14 @@
 #
 # generate -> prepare (3-party shares) -> decrypt roundtrip -> rerandomize ->
 # two participants + coordinator-holding-the-third-share over TCP -> local
-# TPU match. Uses small data (4,096 templates) so it finishes in minutes;
+# GPU match. Uses small data (4,096 templates) so it finishes in minutes;
 # scale `COUNT` up on real hardware.
+#
+# The participants and the coordinator run as separate JAX processes. On one
+# card a JAX process reserves three quarters of its memory by default, so a
+# second one would fail: every process here gets its share instead.
 set -euo pipefail
+export XLA_PYTHON_CLIENT_MEM_FRACTION="${XLA_PYTHON_CLIENT_MEM_FRACTION:-0.3}"
 
 DIR="${1:-$(mktemp -d)}"
 COUNT=4096

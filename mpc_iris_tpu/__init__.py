@@ -1,7 +1,7 @@
-"""mpc_iris_tpu — a TPU-native framework for privacy-preserving iris-code matching.
+"""mpc_iris_tpu — a JAX framework for privacy-preserving iris-code matching on GPUs.
 
-Re-designed from scratch for TPU (JAX / XLA / Pallas / pjit) with the capability set of
-the Rust reference `mpc-iris-code` (see /root/reference and SURVEY.md):
+Built on JAX / XLA / Pallas with the capability set of the Rust reference
+`mpc-iris-code` (see SURVEY.md):
 
 - 12,800-bit masked iris codes on a 64x200 grid (reference: src/lib.rs:10-12),
 - masked fractional Hamming distance, minimum over 31 column rotations
@@ -10,8 +10,8 @@ the Rust reference `mpc-iris-code` (see /root/reference and SURVEY.md):
   (reference: src/encoded_bits.rs:22-38),
 - a streaming N-party match protocol (reference: src/main.rs).
 
-The compute path is reformulated TPU-first: the reference's per-core SIMD u16
-dot-product loops (src/arch/) become batched int8 MXU matmuls with an exact
+The compute path is reformulated for accelerators: the reference's per-core SIMD u16
+dot-product loops (src/arch/) become batched int8 matmuls with an exact
 lo/hi-byte-plane decomposition for Z_2^16, rotations become a 31x expansion of the
 query (LHS) only, and argmin over rotations/entries is an exact integer fraction
 comparison on device. See README.md for the architecture.

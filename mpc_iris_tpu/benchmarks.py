@@ -2,17 +2,17 @@
 `cargo bench --bench bench --features bench` (src/arch/mod.rs:22-72, src/bench.rs).
 
 The reference registers `dot_bool` / `dot_u16` at DB sizes {1, 1k, 31x1k, 100k,
-31x100k} element-pairs. This suite times the TPU-native equivalents at the same
+31x100k} element-pairs. This suite times the device equivalents at the same
 points — single-query serving shape (M = 31 rotations) and the batched shape
 (B = 128 queries) — plus the fused match step and the host-side ETL codecs:
 
-  dot_mask   == dot_bool  (denominator AND-popcount as int4/int8 matmul)
+  dot_mask   == dot_bool  (denominator AND-popcount as an int8 matmul)
   dot_share  == dot_u16   (exact Z_2^16 share dot via the lo/hi int8 pair)
   match_step == engine hot loop (matmuls + fused exact argmin)
   parse/render/share_split == prepare/generate ETL (native C++ core)
 
-Each timing subtracts the measured per-dispatch overhead (remote backends add
-a fixed round-trip per call that would swamp the small sizes).
+Each timing subtracts the measured per-dispatch overhead (a fixed cost per
+call that would swamp the small sizes).
 
 Run: `python -m mpc_iris_tpu bench-kernels [--json]`.
 """
@@ -62,8 +62,8 @@ def run_device_benches(sizes=REFERENCE_SIZES, batch=128, emit=print):
     import jax
     import jax.numpy as jnp
 
-    from mpc_iris_tpu.models.engines import match_scan_auto
-    from mpc_iris_tpu.ops.dot import dot_bits_batch_i4, dot_share_batch
+    from mpc_iris_tpu.models.engines import _match_scan
+    from mpc_iris_tpu.ops.dot import dot_bits_batch, dot_share_batch
 
     dev = jax.devices()[0]
     overhead = _dispatch_overhead()
@@ -101,7 +101,7 @@ def run_device_benches(sizes=REFERENCE_SIZES, batch=128, emit=print):
     # The reference's criterion points are element-PAIRS (e.g. 31x100k pairs =
     # one query's 31 rotations against 100k entries); DB entries = pairs /
     # LHS rows. Dense int8 [n, 12800] planes cost 12.8 KB each (x2 for the
-    # share bench), so cap resident entries well under HBM.
+    # share bench), so cap resident entries well under device memory.
     cap = 1 << 18  # 262,144 entries = ~3.4 GB/plane
 
     for label, m_rows in (("q1", N_ROTATIONS), (f"b{batch}", batch * N_ROTATIONS)):
@@ -110,10 +110,10 @@ def run_device_benches(sizes=REFERENCE_SIZES, batch=128, emit=print):
             n_eff = max(1, min(pairs // m_rows, cap))
             if pairs // max(m_rows, 1) > cap:
                 emit(f"note: {label}/{pairs} pairs truncated to {cap} DB entries "
-                     "(HBM cap)")
+                     "(device-memory cap)")
             db = jax.random.randint(kd, (n_eff, BITS), -1, 2, dtype=jnp.int8)
 
-            mm = jax.jit(lambda q, db: dot_bits_batch_i4(q, db).sum())
+            mm = jax.jit(lambda q, db: dot_bits_batch(q, db).sum())
             pairs = m_rows * n_eff
             _net_row(f"dot_mask/{label}/{n_eff}",
                      _timeit_stats(lambda: np.asarray(mm(q, db))), pairs,
@@ -136,35 +136,31 @@ def run_device_benches(sizes=REFERENCE_SIZES, batch=128, emit=print):
     for b in sorted({8, 64, batch}):
         qe = jax.random.randint(kq, (b, N_ROTATIONS, BITS), -1, 2, dtype=jnp.int8)
         qm = (qe != 0).astype(jnp.int8)
-        st = _timeit_stats(lambda: np.asarray(match_scan_auto(qe, qm, db, dm)))
+        st = _timeit_stats(lambda: np.asarray(_match_scan(qe, qm, db, dm)))
         cmps = b * n_chunks * chunk * N_ROTATIONS
         _net_row(f"match_step/b{b}/{n_chunks * chunk}", st, cmps,
                  macs=2 * cmps * BITS)
 
-    # Packed small-batch kernel (round 5, ops/packed_match.py): the B=1
-    # serving-latency step — in-VMEM bit-plane unpack + slab dots + fused
-    # exact selection over a bit-packed DB, one dispatch.
-    from mpc_iris_tpu.models.engines import prepare_query_planes
-    from mpc_iris_tpu.ops.packed_match import match_packed_small_b
+    # Packed small-batch step (models.engines.match_scan_packed_auto): the
+    # B=1 serving-latency and B=8 audit shapes over a bit-packed DB.
+    from mpc_iris_tpu.models.engines import (
+        match_scan_packed_auto,
+        prepare_query_planes,
+    )
 
     rng_np = np.random.default_rng(0)
     pk_pat = jax.device_put(jnp.asarray(
         rng_np.integers(0, 256, (n_chunks, chunk, BITS // 8), dtype=np.uint8)))
     pk_msk = jax.device_put(jnp.asarray(
         rng_np.integers(0, 256, (n_chunks, chunk, BITS // 8), dtype=np.uint8)))
-    interp = jax.default_backend() != "tpu"
-    if interp:
-        emit("note: match_packed_small_b rows skipped off-TPU (Pallas "
-             "interpret mode at 131k entries is minutes-slow; the CPU suite "
-             "covers its correctness)")
-    for b in () if interp else (1, 8):
+    for b in (1, 8):
         qp = rng_np.integers(0, 256, (b, BITS // 8), dtype=np.uint8)
         qm_ = rng_np.integers(0, 256, (b, BITS // 8), dtype=np.uint8)
         qe_, qme_ = prepare_query_planes(qp, qm_)
-        st = _timeit_stats(lambda: np.asarray(match_packed_small_b(
-            qe_, qme_, pk_pat, pk_msk, interpret=interp)))
+        st = _timeit_stats(lambda: np.asarray(match_scan_packed_auto(
+            qe_, qme_, pk_pat, pk_msk)))
         cmps = b * n_chunks * chunk * N_ROTATIONS
-        _net_row(f"match_packed_small_b/b{b}/{n_chunks * chunk}", st, cmps,
+        _net_row(f"match_packed/b{b}/{n_chunks * chunk}", st, cmps,
                  macs=2 * cmps * BITS)
     del pk_pat, pk_msk
 

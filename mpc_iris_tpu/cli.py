@@ -9,7 +9,7 @@
                    including coordinator-as-participant via --share (stubbed in the
                    reference, src/main.rs:136,482 — implemented here)
 - ``benchmark``    drive a participant with random queries (src/main.rs:645-686)
-- ``match``        NEW: local plaintext uniqueness check on TPU (the fused
+- ``match``        NEW: local plaintext uniqueness check on the device (the fused
                    matmul+argmin pipeline; the reference only has a scalar oracle)
 
 Binary/JSON formats are byte-compatible with the reference, so DB shares prepared by
@@ -1186,7 +1186,7 @@ def cmd_participant(args) -> int:
 
     if args.warmup:
         # Compile + run the per-chunk shapes once so the first real query is
-        # served at steady-state speed (first compiles cost minutes on TPU).
+        # served at steady-state speed (a cold compile takes seconds).
         t0 = time.monotonic()
         rng = np.random.default_rng(0)
         wb = args.warmup_batch if args.wire in ("batched", "chain") else 1
@@ -2086,7 +2086,7 @@ def _version_string() -> str:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="mpc-iris-tpu",
-        description="TPU-native privacy-preserving iris-code matching",
+        description="privacy-preserving iris-code matching on accelerators",
     )
     p.add_argument("--version", action="version", version=_version_string())
     p.add_argument(
@@ -2585,7 +2585,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     g.set_defaults(fn=_bench_kernels)
 
-    g = sub.add_parser("match", help="local plaintext uniqueness check on TPU")
+    g = sub.add_parser("match", help="local plaintext uniqueness check on the device")
     g.add_argument("db", help="template JSON file")
     g.add_argument("--queries-file", default=None)
     g.add_argument("--batch", type=parse_si, default=8)
@@ -2593,7 +2593,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--seed", type=int, default=None)
     g.add_argument(
         "--storage", choices=["auto", "dense", "packed"], default="auto",
-        help="packed = 3.2 KB/entry bit-plane HBM storage (4M entries/chip)",
+        help="packed = 3.2 KB/entry bit-plane device storage",
     )
     g.add_argument(
         "--threshold", type=float, default=None,

@@ -1,7 +1,7 @@
-"""Device kernels (layer L0 of SURVEY.md) — the TPU-native compute path.
+"""Device kernels (layer L0 of SURVEY.md) — the accelerator compute path.
 
 The reference's hot loops are per-entry SIMD dot products (src/arch/generic.rs,
-src/arch/sve.rs). Here they are reformulated as batched int8 MXU matmuls:
+src/arch/sve.rs). Here they are reformulated as batched int8 matmuls:
 
 - plaintext / denominator paths: {0,1} and {-1,0,1} int8 matmuls (exact in int32),
 - the Z_2^16 share path: an exact lo/hi byte-plane decomposition into two int8

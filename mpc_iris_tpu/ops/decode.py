@@ -8,7 +8,7 @@ The reference decodes per-entry distances on the coordinator (src/lib.rs:97-107)
 
 and tracks the running argmin over DB entries in f64 (src/main.rs:581-621).
 
-TPUs have no fast f64, and none is needed: n <= 32,767 and d <= 65,535, so the exact
+The device needs no f64: n <= 32,767 and d <= 65,535, so the exact
 rational order of n1/d1 vs n2/d2 is decided by the int32 comparison
 n1*d2 < n2*d1 (products <= 32,767 * 65,535 < 2^31). Entries with d == 0 are treated as
 +infinity, which reproduces the reference's NaN-skipping min fold (NaN and +inf both
@@ -50,8 +50,7 @@ def _frac_less(n1, d1, n2, d2):
 def _frac_select(n1, d1, i1, n2, d2, i2):
     """Select the smaller fraction; ties (and both-invalid) keep the smaller index.
 
-    Single pair of int32 cross-products (int32 multiplies are expensive on the VPU);
-    validity is folded in by keying invalid (d == 0) entries to +inf-like behavior.
+    Single pair of int32 cross-products; validity is folded in by keying invalid (d == 0) entries to +inf-like behavior.
     """
     p1 = n1 * d2
     p2 = n2 * d1
@@ -72,7 +71,7 @@ def fraction_min_rotations(nums, dens, axis=-1):
 
     Args: int32 arrays [..., 31] (or ``axis`` elsewhere). Returns (n, d, r) int32
     arrays without that axis, r being the winning rotation slot 0..30 (rotation
-    r - 15). Static 31-way tree of VPU selects.
+    r - 15). Static 31-way tree of elementwise selects.
     """
     nums = jnp.asarray(nums, dtype=jnp.int32)
     dens = jnp.asarray(dens, dtype=jnp.int32)
@@ -107,9 +106,9 @@ def fraction_argmin(nums, dens, axis=-1, index_offset=0):
       index_offset: added to the returned indices (may be traced, for chunked scans).
 
     Returns (n, d, idx) int32 arrays with ``axis`` reduced; ties keep the smallest
-    index. A log2(n) sequence of elementwise selects — this vectorizes on the VPU,
-    unlike an XLA variadic reduce with a custom comparator (which lowers to a
-    serialized loop on TPU and dominated the match-scan profile).
+    index. A log2(n) sequence of elementwise selects, which XLA fuses into
+    plain elementwise passes (an XLA variadic reduce with a custom comparator
+    is a harder pattern for its emitters).
     """
     nums = jnp.asarray(nums, dtype=jnp.int32)
     dens = jnp.asarray(dens, dtype=jnp.int32)
@@ -145,6 +144,30 @@ def running_min(state, n, d, i):
     """Fold a new (n, d, idx) candidate batch result into carried best state
     (for lax.scan over DB chunks)."""
     return _frac_select(*state, n, d, i)
+
+
+def fold_candidates(n, d, idx, axis=-1):
+    """Fold candidate winner triples along ``axis`` (ties keep the lower idx,
+    which need not follow slot order — e.g. per-shard winners)."""
+    axis = axis % n.ndim
+    size = n.shape[axis]
+    n = jnp.moveaxis(n, axis, -1)
+    d = jnp.moveaxis(d, axis, -1)
+    idx = jnp.moveaxis(idx, axis, -1)
+    pow2 = 1 << (size - 1).bit_length()
+    if pow2 != size:
+        pad = [(0, 0)] * (n.ndim - 1) + [(0, pow2 - size)]
+        n = jnp.pad(n, pad)
+        d = jnp.pad(d, pad)  # d == 0 pads lose every compare
+        idx = jnp.pad(idx, pad, constant_values=2**31 - 1)
+    while pow2 > 1:
+        half = pow2 // 2
+        n, d, idx = _frac_select(
+            n[..., :half], d[..., :half], idx[..., :half],
+            n[..., half:], d[..., half:], idx[..., half:],
+        )
+        pow2 = half
+    return n[..., 0], d[..., 0], idx[..., 0]
 
 
 # ----------------------------------------------------------------- host decode (f64)

@@ -1,5 +1,5 @@
 """Batched dot-product kernels — the reference's `arch::dot_bool` / `arch::dot_u16`
-(src/arch/generic.rs:4-16, src/arch/sve.rs:27-77) reformulated as int8 MXU matmuls.
+(src/arch/generic.rs:4-16, src/arch/sve.rs:27-77) reformulated as int8 matmuls.
 
 Shapes follow the matmul view of the match problem (SURVEY.md section 7):
 
@@ -7,9 +7,9 @@ Shapes follow the matmul view of the match problem (SURVEY.md section 7):
 
 where M = batch x 31 rotations of the query side and N = DB entries.
 
-Exact Z_2^16 on the MXU
------------------------
-The MXU multiplies int8 x int8 into int32. The share DB is u16, but the *query* side is
+Exact Z_2^16 on int8 tensor cores
+---------------------------------
+The tensor cores multiply int8 x int8 into int32. The share DB is u16, but the *query* side is
 always the ternary encoding q in {-1, 0, 1} (reference src/lib.rs:16-26), so a u16
 share s = s_lo + 256*s_hi (s_lo, s_hi in [0, 255]) gives
 
@@ -35,7 +35,7 @@ _DOT_DIMS = (((1,), (1,)), ((), ()))  # contract K against K, no batch dims
 
 
 def _matmul_i8(q, db):
-    """int8 [M, K] x int8 [N, K] -> int32 [M, N] on the MXU."""
+    """int8 [M, K] x int8 [N, K] -> int32 [M, N]."""
     return lax.dot_general(q, db, dimension_numbers=_DOT_DIMS, preferred_element_type=jnp.int32)
 
 
@@ -47,32 +47,6 @@ def dot_bits_batch(q, db):
     (#equal - #unequal over jointly masked bits). Exact in int32 (|sum| <= 12,800).
     """
     return _matmul_i8(q, db)
-
-
-def dot_bits_batch_i4(q, db, out_dtype=jnp.int32):
-    """`dot_bits_batch` on the int4 MXU path — ~1.7x the int8 rate on TPU v5e.
-
-    Operand values must fit int4 (they do: {-1,0,1} encodings and {0,1} masks).
-    The conversion happens inline per chunk so the HBM-resident DB stays int8
-    (int4-materialized HBM arrays measured *slower* to stream); XLA fuses the
-    cast into the matmul's VMEM pipeline. Non-TPU backends (tests, virtual CPU
-    meshes) fall back to int8 — the CPU backend rejects some int4 dot shapes.
-
-    ``out_dtype=int16`` halves the output's HBM traffic and is still exact:
-    |dot| <= 12,800 < 2^15, and every K-prefix partial sum of +-1 products is
-    bounded by the number of terms, so even int16 accumulation cannot wrap.
-    """
-    import jax
-
-    if jax.default_backend() != "tpu":
-        out = _matmul_i8(q, db)
-        return out.astype(out_dtype) if out_dtype != jnp.int32 else out
-    return lax.dot_general(
-        q.astype(jnp.int4),
-        db.astype(jnp.int4),
-        dimension_numbers=_DOT_DIMS,
-        preferred_element_type=out_dtype,
-    )
 
 
 def shares_to_planes(shares_u16):
@@ -106,25 +80,8 @@ def dot_share_batch(q_i8, db_lo, db_hi):
     Returns:
       uint16 [M, N], bit-identical to the reference's `arch::dot_u16`
       (src/arch/generic.rs:11-16) applied pairwise.
-
-    On TPU the whole pipeline runs in wrapping int16: the result is only needed
-    mod 2^16 and two's-complement truncation/overflow IS reduction mod 2^16
-    (ring homomorphism), so int16 matmul outputs halve the HBM traffic with
-    bit-identical results (verified vs the int32 pipeline and the scalar
-    oracle, including extreme share values).
     """
-    import jax
-
     q_i8 = q_i8.astype(jnp.int8)
-    if jax.default_backend() == "tpu":
-        d_lo = lax.dot_general(q_i8, db_lo, dimension_numbers=_DOT_DIMS,
-                               preferred_element_type=jnp.int16)
-        d_hi = lax.dot_general(q_i8, db_hi, dimension_numbers=_DOT_DIMS,
-                               preferred_element_type=jnp.int16)
-        rowsum = jnp.sum(q_i8.astype(jnp.int32), axis=1, keepdims=True)
-        corr = (jnp.int32(128) * rowsum).astype(jnp.int16)
-        total = (d_lo + corr) + ((d_hi + corr) << 8)
-        return total.astype(jnp.uint16)
     d_lo = _matmul_i8(q_i8, db_lo)  # Q @ (S_lo - 128)^T
     d_hi = _matmul_i8(q_i8, db_hi)  # Q @ (S_hi - 128)^T
     # Rank-1 offset correction: +128 * rowsum(Q) for each plane.
@@ -146,11 +103,11 @@ _self_test_done = False
 
 
 def kernel_self_test():
-    """One-time runtime canary: fast MXU paths == NumPy oracles on this backend.
+    """One-time runtime canary: the device matmul paths == NumPy oracles.
 
-    The int16/int4 fast paths rely on backend behaviors that are verified
-    empirically (wrapping integer downcasts, int4 dot support); a backend or
-    compiler change that broke them would corrupt results silently. This runs
+    The share and mask dots rely on backend integer semantics (exact int32
+    accumulation of int8 products, wrapping reduction mod 2^16); a backend or compiler change that broke them would corrupt
+    results silently. This runs
     once per process (engines call it lazily) and raises on any mismatch —
     the runtime analogue of the reference's asm-vs-generic kernel test
     (src/arch/sve.rs:79-109). Costs one tiny dispatch.
@@ -172,18 +129,16 @@ def kernel_self_test():
     s[2, :2] = [0, 0xFFFF]
     m = rng.integers(0, 2, size=(4, k)).astype(np.int8)
 
-    # Everything under ONE jit: eager int4 intermediates cannot cross some
-    # remote-transfer boundaries (and a single dispatch is cheaper anyway).
+    # One jit, one dispatch.
     @jax.jit
     def run(q, s, m):
         lo, hi = shares_to_planes(s)
         return jnp.stack([
             dot_share_batch(q, lo, hi).astype(jnp.int32),
-            dot_bits_batch_i4(q, m),
-            dot_bits_batch_i4(q, m, out_dtype=jnp.int16).astype(jnp.int32),
+            dot_bits_batch(q, m),
         ])
 
-    got, got_mask, got_mask16 = np.asarray(run(q, s, m))
+    got, got_mask = np.asarray(run(q, s, m))
     for i in range(4):
         for j in range(4):
             want = int(dot_u16_oracle(q[i], s[j]))
@@ -194,7 +149,7 @@ def kernel_self_test():
                     "changed; results would be corrupt"
                 )
             want_m = int((q[i].astype(np.int64) * m[j]).sum())
-            if int(got_mask[i, j]) != want_m or int(got_mask16[i, j]) != want_m:
+            if int(got_mask[i, j]) != want_m:
                 raise RuntimeError(
                     f"mask-dot kernel self-test FAILED at [{i},{j}]"
                 )

@@ -7,7 +7,7 @@ The ring embedding (reference src/lib.rs:16-26): per bit,
 yielding {0, 1, 0xFFFF} = {masked-out, unset, set} = {0, +1, -1} over Z_2^16
 (verified exhaustively by the reference's test_preprocess, src/lib.rs:117-132).
 
-For the MXU we use the signed int8 view {0, 1, -1} directly; the u16 view is the
+For the int8 matmuls we use the signed int8 view {0, 1, -1} directly; the u16 view is the
 protocol/storage form. Both are produced here, plus bit pack/unpack helpers shared by
 host (NumPy) and device (jnp) code — the functions are backend-agnostic where possible.
 """
@@ -65,7 +65,7 @@ def encode_grid_i8(pattern_bits, mask_bits, xp=jnp):
     """Signed int8 view of the ring encoding: {-1, 0, +1} = {set, masked, unset}.
 
     Equal to :func:`encode_grid_u16` reinterpreted mod 2^16 into [-1, 1] — the form
-    the MXU consumes.
+    the int8 matmuls consume.
     """
     p = xp.asarray(pattern_bits, dtype=xp.int8)
     m = xp.asarray(mask_bits, dtype=xp.int8)

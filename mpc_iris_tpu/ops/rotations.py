@@ -1,7 +1,7 @@
 """Rotation expansion — the 31x unfolding of a query over column rotations.
 
 The reference precomputes 31 rotated copies of the encoded query and loops over them
-per DB entry (src/lib.rs:33-52). TPU-natively, the 31 rotations become extra rows of
+per DB entry (src/lib.rs:33-52). Here the 31 rotations become extra rows of
 the matmul LHS: the DB (the big operand) is never rotated.
 
 Rotation semantics (pinned by reference test_rotated_number,

@@ -2,17 +2,17 @@
 
 XLA's built-in reduction collectives (psum/pmax) can't carry the exact rational
 comparator, so the global winner is combined by all-gathering each shard's winner
-triple (n, d, index) — 12 bytes per query per shard over ICI — and reducing with the
-same exact comparator used on-chip. This is the TPU equivalent of the coordinator's
+triple (n, d, index) — 12 bytes per query per shard over NVLink — and reducing with
+the same exact comparator used on-device. This is the equivalent of the coordinator's
 running argmin over participant streams (reference src/main.rs:581-626), but it stays
-device-side.
+on the devices.
 """
 
 from __future__ import annotations
 
 import jax
 
-from mpc_iris_tpu.ops.select_pallas import fold_candidates
+from mpc_iris_tpu.ops.decode import fold_candidates
 
 
 def fraction_allmin(n, d, idx, axis_name: str):
@@ -27,7 +27,7 @@ def fraction_allmin(n, d, idx, axis_name: str):
     order under the strided-by-chunk DB distribution, so the fold must compare
     carried indices, not gather slots.)
     """
-    # [A, ...] gathered along a new leading axis; 12 bytes/query/shard over ICI.
+    # [A, ...] gathered along a new leading axis; 12 bytes/query/shard.
     gn = jax.lax.all_gather(n, axis_name)
     gd = jax.lax.all_gather(d, axis_name)
     gi = jax.lax.all_gather(idx, axis_name)

@@ -4,8 +4,8 @@ Two distinct distribution layers (SURVEY.md section 2 parallelism table):
 
 1. **Within one MPC party**: all of the party's hosts/chips form ONE JAX
    process universe (`jax.distributed`) and one `Mesh`; the party's DB shard
-   axis spans the whole slice and winner/reply reductions ride ICI
-   (collectives.py). This replaces the reference's rayon pool (src/lib.rs:44-51)
+   axis spans every device and winner/reply reductions are device
+   collectives (collectives.py). This replaces the reference's rayon pool (src/lib.rs:44-51)
    at datacenter scale.
 
 2. **Between parties and the coordinator**: NEVER a shared collective universe —

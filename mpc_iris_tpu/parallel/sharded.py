@@ -13,7 +13,7 @@ device i holds the global chunks {j*D + i}. Consequences:
   (reference wire order, src/main.rs:428-434) while every device stays busy.
 
 Queries shard over ``"batch"``; the global match winner is combined with
-`fraction_allmin` over ``"db"`` (exact integer fractions over ICI).
+`fraction_allmin` over ``"db"`` (exact integer fractions, one all-gather).
 """
 
 from __future__ import annotations
@@ -32,12 +32,12 @@ except AttributeError:  # pragma: no cover
 from mpc_iris_tpu.models.engines import (
     DEFAULT_CHUNK,
     _mask_dots_chunk,
+    _match_scan,
     _results_from_triples,
     _share_dots_chunk,
-    match_scan_auto,
+    match_scan_packed_auto,
     prepare_query_planes,
 )
-from mpc_iris_tpu.models.engines import _fused_ok as _fused_ok_local
 from mpc_iris_tpu.ops.dot import shares_to_planes
 from mpc_iris_tpu.ops.encode import encode_grid_i8, unpack_bits
 from mpc_iris_tpu.parallel.collectives import fraction_allmin
@@ -149,7 +149,7 @@ class _ShardedBase:
 
     def _fetchable(self, arr):
         """Make a device result fetchable on THIS host. Single-process: no-op.
-        Multi-process: one all-gather over ICI to a fully-replicated layout
+        Multi-process: one all-gather to a fully-replicated layout
         (a host can only fetch addressable shards; reply blocks leave the
         party through one host's TCP socket, so it must see the whole block)."""
         if jax.process_count() == 1:
@@ -169,9 +169,8 @@ class ShardedPlaintextEngine(_ShardedBase):
     def __init__(self, patterns_packed, masks_packed, mesh,
                  chunk: int = DEFAULT_CHUNK, storage: str = "auto"):
         """storage: as in models.PlaintextEngine — "packed" (the "auto"
-        choice at every size, r05: faster than dense at every measured
-        shape on top of the 8x capacity) keeps raw bit planes per shard
-        (3.2 KB/entry) and unpacks per chunk on device."""
+        choice) keeps raw bit planes per shard (3.2 KB/entry) and unpacks
+        per chunk on device."""
         n = patterns_packed.shape[0]
         chunk = effective_chunk(chunk, n, mesh.shape["db"])
         super().__init__(mesh, chunk)
@@ -216,32 +215,9 @@ class ShardedPlaintextEngine(_ShardedBase):
             # local: q [B_local, 31, K]; db [C_local, 1, c, K or K/8]
             local_a = db_a.reshape(db_a.shape[0], c, db_a.shape[-1])
             local_b = db_b.reshape(db_b.shape[0], c, db_b.shape[-1])
-            if packed:
-                from mpc_iris_tpu.models.engines import _match_scan_packed
-                from mpc_iris_tpu.ops.packed_match import (
-                    match_packed_small_b,
-                    small_b_ok,
-                )
-
-                b_local = q_enc.shape[0]  # per-shard batch (shard_map local)
-                if small_b_ok(b_local, c, db_a.shape[0] * c):
-                    # serving-latency kernel (in-VMEM bit-plane unpack; see
-                    # ops/packed_match.py) — same dispatch policy as the
-                    # single-chip engine's match_scan_packed_auto
-                    n_, d_, l = match_packed_small_b(
-                        q_enc, q_mask, local_a, local_b,
-                        interpret=jax.default_backend() != "tpu",
-                    )
-                else:
-                    fused = _fused_ok_local(b_local, c)
-                    n_, d_, l = _match_scan_packed(
-                        q_enc, q_mask, local_a, local_b,
-                        interpret=fused and jax.default_backend() != "tpu",
-                        fused=fused,
-                    )
-            else:
-                # Fused Pallas selection when local shapes align (TPU), else XLA.
-                n_, d_, l = match_scan_auto(q_enc, q_mask, local_a, local_b)
+            # the single-chip dispatch policy on the per-shard batch
+            scan = match_scan_packed_auto if packed else _match_scan
+            n_, d_, l = scan(q_enc, q_mask, local_a, local_b)
             # local l = j*c + p  ->  global (j*D + i)*c + p
             i_rank = lax.axis_index("db").astype(jnp.int32)
             g = (l // c) * (d * c) + i_rank * c + (l % c)
@@ -271,7 +247,7 @@ class ShardedPlaintextEngine(_ShardedBase):
             local_a = db_a.reshape(db_a.shape[0], c, db_a.shape[-1])
             local_b = db_b.reshape(db_b.shape[0], c, db_b.shape[-1])
             # packed dispatch includes the small-B audit kernel (the audit
-            # serving shape; same policy as the single-chip engine)
+            # serving shape; same policy as the single-device engine)
             scan = fractions_scan_packed_auto if packed else _fractions_scan
             nd = scan(q_enc, q_mask, local_a, local_b)  # [2, B, C_local*c]
             b = nd.shape[1]
@@ -532,15 +508,15 @@ class ShardedKeyedShareEngine(_ShardedBase):
     The purest form of the keyed design (models.KeyedShareEngine): there is no
     DB to distribute at all — each device derives its global chunk's rows from
     its own axis index via the addressable ChaCha20 stream (SPEC §4.1), so
-    scaling a keyed party to more chips moves ZERO bytes of share data over
-    host, ICI, or DCN. Replies stream in DB order exactly like
+    scaling a keyed party to more devices moves ZERO bytes of share data
+    between hosts or devices. Replies stream in DB order exactly like
     ShardedShareEngine."""
 
     def __init__(self, key: bytes, stream_id: int, count: int, mesh,
                  chunk: int = DEFAULT_CHUNK):
         from mpc_iris_tpu.models.engines import kernel_self_test
         from mpc_iris_tpu.ops.chacha import (
-            check_stream_id, key_words, share_planes_auto,
+            check_stream_id, key_words, share_planes_natural,
         )
 
         kernel_self_test()
@@ -559,7 +535,7 @@ class ShardedKeyedShareEngine(_ShardedBase):
             row0 = (j * d + i) * chunk
             # Natural-K-order planes; queries arrive pre-permuted via
             # _q_transform (the dot is K-permutation invariant).
-            lo, hi = share_planes_auto(kw_, sid, row0, chunk)
+            lo, hi = share_planes_natural(kw_, sid, row0, chunk)
             return _share_dots_chunk(q_nat, lo, hi)
 
         self._kw = kw
@@ -599,7 +575,7 @@ class ShardedKeyedShareEngine(_ShardedBase):
         ``"db"``. Bench/self-test utility — the protocol path streams blocks.
         """
         from mpc_iris_tpu.models.engines import _queries_to_natural_k
-        from mpc_iris_tpu.ops.chacha import share_planes_auto
+        from mpc_iris_tpu.ops.chacha import share_planes_natural
 
         d, chunk, sid = self.n_shards, self.chunk, self._sid
         g_blocks = self._g_blocks
@@ -617,7 +593,7 @@ class ShardedKeyedShareEngine(_ShardedBase):
 
             def step(acc, j):
                 row0 = ((j * d + i) * chunk).astype(jnp.uint32)
-                lo, hi = share_planes_auto(kw_, sid, row0, chunk)
+                lo, hi = share_planes_natural(kw_, sid, row0, chunk)
                 out = _share_dots_chunk(q_nat, lo, hi)
                 return acc + out.astype(jnp.uint32).sum(), None
 

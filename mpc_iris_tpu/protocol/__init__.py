@@ -11,7 +11,7 @@ Wire format parity with the reference (src/main.rs:405-445, 486-560):
   exist).
 
 Device compute (the engines) runs in worker threads feeding asyncio queues, so network
-streaming overlaps the MXU chunk scans — the tokio-pipeline equivalent
+streaming overlaps the device chunk scans — the tokio-pipeline equivalent
 (src/main.rs:423-445, 508-626).
 """
 

@@ -2,7 +2,7 @@
 
 The reference relies on external `samply` sampling with a dedicated cargo
 profile (Cargo.toml:52-56) and has no built-in tracing. Here we get device-level
-tracing from jax.profiler (XLA op timeline, HBM usage, MXU utilization in
+tracing from jax.profiler (XLA op timeline and device memory in
 TensorBoard / Perfetto) plus lightweight host-side stage timers.
 
 Usage:

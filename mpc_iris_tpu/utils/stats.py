@@ -4,8 +4,8 @@ The reference benches through criterion (Cargo.toml:41-46, src/arch/mod.rs:22-72
 which reports a distribution — sampling, outlier classification, dispersion —
 not a single best time. This module is the equivalent for our harnesses:
 robust summary statistics (median +/- MAD), Tukey-fence outlier rejection,
-and round-over-round regression deltas against a checked-in history ledger
-(docs/BENCH_HISTORY.jsonl), so a +/-2% drift is visible instead of hiding
+and run-over-run regression deltas against a history ledger
+(docs/BENCH_HISTORY.jsonl, keyed by device kind and shape), so a +/-2% drift is visible instead of hiding
 inside best-of-3 noise.
 """
 

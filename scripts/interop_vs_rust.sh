@@ -1,6 +1,6 @@
 #!/usr/bin/env bash
-# Turnkey cross-implementation interop gate against the Rust reference
-# (VERDICT r03 item 5). Builds /root/reference READ-ONLY (CARGO_TARGET_DIR
+# Turnkey cross-implementation interop gate against the Rust reference.
+# Builds the reference checkout ($MPC_IRIS_REFERENCE) READ-ONLY (CARGO_TARGET_DIR
 # points elsewhere) and cross-checks, in both directions:
 #   1. prepare: identical masks bytes from the same JSON input
 #   2. our `decrypt` reconstructs rust-prepared share files exactly
@@ -20,8 +20,7 @@ REPO="$(cd "$(dirname "$0")/.." && pwd)"
 
 if ! command -v cargo >/dev/null 2>&1; then
     echo "SKIP: cargo not found — install a Rust toolchain to run the" \
-         "cross-implementation gate (this is the expected outcome in the" \
-         "TPU container, which ships no Rust)"
+         "cross-implementation gate"
     exit 0
 fi
 if [ ! -f "$REF/Cargo.toml" ]; then

@@ -5,9 +5,9 @@ slice, loaded disjointly), so the GLOBAL DB grows with the process count and
 ideal scaling keeps the per-pass wall time flat (throughput grows ~linearly).
 
 This is a *topology* measurement, not a speed record: all processes share
-this machine's CPU (1 vCPU here — see docs/RESULTS.md), so the curve mostly
-shows the sharding/collective overhead added per process. On a real pod
-slice, the same code paths run one process per host over ICI/DCN.
+this machine's CPU, so the curve mostly shows the sharding/collective
+overhead added per process. On a multi-host deployment the same code paths
+run one process per host.
 
 Run:  JAX_PLATFORMS=cpu python scripts/multihost_scaling.py --procs-list 1,2,4
 Prints one line per process count: global rows, pass time, query-entries/s.

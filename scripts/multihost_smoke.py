@@ -1,5 +1,5 @@
 """Multi-host party smoke: N CPU processes form one jax.distributed universe
-and run the sharded match step (what a real multi-host party does over ICI/DCN).
+and run the sharded match step (what a real multi-host party does across its hosts).
 
 Run (single machine, CPU backend, 2 processes):
 

@@ -1,8 +1,8 @@
 """Fixed-seed byte-mutation fuzz of the native template-JSON parser.
 
-Part of the memory-safety gate for the C++ codec (`pytest -m native_asan`,
-VERDICT r04 next #7 — the discipline the Rust reference gets from its
-compiler for free, SURVEY.md §5): builds a seed corpus of well-formed
+Part of the memory-safety gate for the C++ codec (`pytest -m native_asan` —
+the discipline the Rust reference gets from its compiler for free,
+SURVEY.md §5): builds a seed corpus of well-formed
 reference-format template JSON (src/main.rs:294-309 layout via the repo's
 own renderer), then drives ``TemplateParser.feed`` over thousands of
 mutated variants — byte flips, truncations, duplications, splices — in

@@ -131,19 +131,20 @@ def test_keyed_fold_pass_matches_dots():
 
 def test_keyed_batch_hint_scales_headroom(monkeypatch):
     """A larger batch_hint reserves more workspace headroom out of the
-    default resident budget (prevents the measured B=1024 pass OOM), and the
-    engine stays bit-identical regardless of the resident split."""
+    default resident budget (engines.scan_workspace), and the engine stays
+    bit-identical regardless of the resident split."""
     from mpc_iris_tpu.models import KeyedShareEngine
+    from mpc_iris_tpu.models.engines import scan_workspace
     from mpc_iris_tpu.types import Template
 
-    # Budget = 4 GiB floor headroom + exactly 2 chunks of resident planes.
+    # Budget = the B=1 workspace + exactly 2 chunks of resident planes.
     monkeypatch.setenv(
-        "MPC_IRIS_HBM_BUDGET", str(4 * (1 << 30) + 2 * (2 * 12800 * 8))
+        "MPC_IRIS_HBM_BUDGET", str(scan_workspace(1, 8) + 2 * (2 * 12800 * 8))
     )
     key = native.derive_insecure_key(11)
     small = KeyedShareEngine(key, 0, count=24, chunk=8, batch_hint=1)
     assert small.resident_entries == 16
-    # 31 * batch_hint * chunk beyond the 4 GiB floor evicts the head.
+    # 10 * 31 * batch_hint * chunk bytes of reply blocks evict the head.
     huge = KeyedShareEngine(key, 0, count=24, chunk=8, batch_hint=2**27)
     assert huge.resident_entries == 0
 
@@ -343,26 +344,31 @@ def test_parse_keyed_spec_errors(tmp_path):
 
 @pytest.mark.parametrize("row0", [
     0xFFFFFF80,  # reaches 0xFFFFFFFF exactly; no wrap (carry stays 0)
-    0xFFFFFFC0,  # tile 1's BASE wraps past 2^32 (whole-tile carry = 1)
-    0xFFFFFFF0,  # wrap mid-tile 0 (carry flips inside one tile)
+    0xFFFFFFC0,  # the 65th row wraps past 2^32 (carry = 1 from there on)
+    0xFFFFFFF0,  # wrap after 16 rows
 ])
-def test_pallas_words_interpret_parity(row0):
-    """The Pallas word generator (interpret mode here; the TPU build was
-    verified live) matches the XLA natural-plane emitter bit-for-bit —
-    including key words with the high bit set (the scalar-prefetch path
-    round-trips them through int32), the max valid uint32 stream id (>= 2^31,
-    which a naive int32 conversion rejects), and u64-nonce carry at all three
-    positions: none, at a tile base, and mid-tile. The tile-base case is the
-    regression for the kernel carry comparing against the per-tile iota
-    instead of the global row offset."""
+def test_natural_planes_match_host_chacha(row0):
+    """The XLA natural-plane emitter (the keyed engines' regeneration path)
+    matches the host ChaCha20 (native.chacha20_stream) bit for bit, after
+    the k_permutation and the -128 plane offset — with key words whose high
+    bit is set, the max valid uint32 stream id (>= 2^31, which a naive int32
+    conversion rejects), and the u64-nonce carry at none, a late and an
+    early row."""
     import jax.numpy as jnp
 
     key = native.derive_insecure_key(12345)  # sha256 bytes: high bits set
     assert any(b & 0x80 for b in key[3::4])  # ensure the wrap path is real
     kw = jnp.asarray(chacha.key_words(key))
-    sid = np.uint32(0xFFFFFFFE)  # max valid share stream id (SPEC §4.1)
-    ref = chacha.share_planes_natural(kw, sid, np.uint32(row0), 128)
-    pal = chacha.share_planes_natural_pallas(kw, sid, np.uint32(row0),
-                                             128, interpret=True)
-    for a, b in zip(ref, pal):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    sid = 0xFFFFFFFE  # max valid share stream id (SPEC §4.1)
+    n = 128
+    lo, hi = chacha.share_planes_natural(kw, np.uint32(sid), np.uint32(row0), n)
+    perm = chacha.k_permutation()
+    for i in range(n):
+        row = row0 + i  # may pass 2^32: the nonce carries into R_hi
+        nonce = sid.to_bytes(4, "little") + row.to_bytes(8, "little")
+        s = np.frombuffer(native.chacha20_stream(key, 0, nonce, 2 * 12800),
+                          "<u2")[perm]
+        np.testing.assert_array_equal(
+            np.asarray(lo[i]), ((s & 0xFF).astype(np.int16) - 128).astype(np.int8))
+        np.testing.assert_array_equal(
+            np.asarray(hi[i]), ((s >> 8).astype(np.int16) - 128).astype(np.int8))

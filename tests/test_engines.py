@@ -270,7 +270,7 @@ def test_packed_storage_matches_dense(rng):
 
 
 def test_packed_storage_fused_path(rng):
-    """Packed + fused Pallas selection (interpret on CPU) == dense XLA."""
+    """Packed storage (on-device unpack per chunk) == dense storage at B=8."""
     from mpc_iris_tpu.models.engines import PlaintextEngine
 
     qpat = rng.integers(0, 256, (8, 1600), dtype=np.uint8)
@@ -308,9 +308,9 @@ def test_out_of_core_default_budget_reserves_stream_headroom(monkeypatch):
     plane_bytes = 2 * 12800 * 128  # one 128-entry chunk of lo/hi planes
     monkeypatch.setenv("MPC_IRIS_HBM_BUDGET", str(5 * plane_bytes))
     eng = ShareEngine(share, chunk=128, batch_hint=8)
-    # 5 chunks' budget minus the transient: (2*(2*12800) + 6*31*8)*128 bytes
+    # 5 chunks' budget minus the transient: (4*12800 + 10*31*8)*128 bytes
     # (TWO raw u16 chunks — computing + prefetched — plus B-scaled blocks)
-    # = ~2.06 plane-chunks -> 2 resident of 8, NOT 5.
+    # = ~2.1 plane-chunks -> 2 resident of 8, NOT 5.
     assert eng._n_resident == 2
     # all-resident DBs are unaffected by the headroom rule
     monkeypatch.setenv("MPC_IRIS_HBM_BUDGET", str(8 * plane_bytes))
@@ -346,8 +346,7 @@ def test_keyed_fold_pass_segmented_matches_single():
     """fold_pass_fn(segments=S) must produce the SAME uint32 checksum as the
     single dispatch for every split — including segments that straddle or lie
     entirely inside the resident head — since uint32 addition is associative
-    mod 2^32. (Segmentation exists because single dispatches past ~60 s of
-    device time trip the remote worker's execution deadline; RESULTS 16M note.)"""
+    mod 2^32. (Segmentation bounds the device time of each dispatch.)"""
     from mpc_iris_tpu.models import KeyedShareEngine
     from mpc_iris_tpu.models.engines import prepare_query_planes
 

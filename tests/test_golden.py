@@ -3,7 +3,7 @@ test_encrypted_distances, src/template.rs:101-112 and src/lib.rs:165-193).
 
 tests/golden_distances.json records f64 distances computed by the pure-Python
 bit-by-bit oracle (tests/oracles.py) on deterministically generated templates. Every
-pipeline — NumPy scalar, fused plaintext TPU engine, and the full N-party encoded
+pipeline — NumPy scalar, fused plaintext device engine, and the full N-party encoded
 path — must reproduce them exactly (stricter than the reference's 1-ulp bar: our f64
 values are computed from identical integers, so they are bit-identical).
 """

@@ -1,4 +1,4 @@
-"""AddressSanitizer + UBSan gate for the native C++ codec (VERDICT r04 #7).
+"""AddressSanitizer + UBSan gate for the native C++ codec.
 
 The reference gets memory safety from the Rust compiler (SURVEY.md §5); the
 equivalent discipline for `native/iris_codec.cpp` is this gate: build the

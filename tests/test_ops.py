@@ -1,4 +1,4 @@
-"""L0 kernel tests: encoding table, MXU matmul formulations vs scalar oracles,
+"""L0 kernel tests: encoding table, int8 matmul formulations vs scalar oracles,
 and the exact integer fraction selection — mirroring reference tests test_preprocess
 (src/lib.rs:117-132), test_dotproduct (src/lib.rs:134-163) and the kernel-equivalence
 test (src/arch/sve.rs:79-109)."""

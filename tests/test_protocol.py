@@ -302,8 +302,7 @@ class TestBatchedWire:
 
     def test_byte_budgeted_records_per_read(self):
         """Read rounds are sized in bytes, not entry-groups: large B shrinks
-        the per-round group count so coordinator memory stays bounded
-        (VERDICT weak #3 / ADVICE coordinator.py:286)."""
+        the per-round group count so coordinator memory stays bounded."""
         from mpc_iris_tpu.constants import REPLY_RECORD_BYTES
         from mpc_iris_tpu.protocol.wire import (
             BATCH_RECORDS, READ_BYTE_BUDGET, records_per_read,
@@ -1006,7 +1005,7 @@ class TestQueryServer:
 
 class TestConcurrentConnections:
     """One participant, several simultaneous coordinators timesharing the
-    device (VERDICT r2 weak #6): replies must stay bit-exact vs serial, the
+    device: replies must stay bit-exact vs serial, the
     refresh hook must run serialized per request, and no pump worker thread
     may leak."""
 

@@ -227,7 +227,7 @@ class TestMasksRefresh:
     @pytest.mark.parametrize("storage", ["dense", "packed"])
     def test_refresh_cost_is_o_added(self, rng, storage):
         """refresh() transfers only the previously-padded tail chunk plus new
-        chunks — O(added), not O(total) (VERDICT r2 weak #4)."""
+        chunks — O(added), not O(total)."""
         masks = rng.integers(0, 256, (72, BITS_BYTES), dtype=np.uint8)
         qm = rng.integers(0, 256, (2, BITS_BYTES), dtype=np.uint8)
 
@@ -288,7 +288,7 @@ class TestShardedRefresh:
 
     def test_sharded_masks_refresh_cost_is_o_added(self, rng):
         """Sharded masks refresh reuses complete blocks and loads only the
-        padded tail + new blocks (VERDICT r2 weak #4)."""
+        padded tail + new blocks."""
         from mpc_iris_tpu.parallel import ShardedMasksEngine, make_mesh
 
         mesh = make_mesh(db=4, batch=1)

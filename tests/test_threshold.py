@@ -176,7 +176,7 @@ class TestPlaintextFindUnder:
 
     def test_compact_subnormal_threshold_takes_exact_path(self, audit_world):
         """A threshold below f32 normal range must NOT go through the f32
-        prefilter (TPU flush-to-zero would turn t_hi*d into 0 and silently
+        prefilter (device flush-to-zero would turn t_hi*d into 0 and silently
         exclude exact duplicates); the orchestrator routes it to the exact
         full path — the planted distance-0 duplicates must appear."""
         dpat, dmsk, qpat, qmsk, oracle = audit_world
@@ -624,8 +624,7 @@ class TestCoordinatorQueryUnder:
 
 class TestCompactionProperties:
     """Hypothesis coverage of the device-side audit compaction
-    (models.engines._compact_under_device + its host epilogues), VERDICT r04
-    next-round #8: for random (n, d) spectra and thresholds placed exactly
+    (models.engines._compact_under_device + its host epilogues): for random (n, d) spectra and thresholds placed exactly
     on representable distances, (a) the f32 prefilter candidate set is a
     SUPERSET of the exact match set, (b) settle_compacted_under equals
     find_under_from_fractions, and (c) overflow (> k candidates) falls back
@@ -731,7 +730,7 @@ class TestCompactionProperties:
         prop()
 
     def test_compaction_properties_at_scale(self):
-        """One deterministic pass at 10k+ entries (VERDICT scale bar),
+        """One deterministic pass at 10k+ entries,
         including a threshold exactly on the planted pile-up fraction and a
         compact_k small enough to force the overflow fallback."""
         nd = self._spectrum(99, 2, 16384)

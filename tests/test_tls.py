@@ -19,7 +19,7 @@ from mpc_iris_tpu.protocol import Coordinator, ParticipantServer
 from mpc_iris_tpu.protocol import keyagree, tlsutil
 from mpc_iris_tpu.types import Template
 
-from tests.test_protocol import build_party_data
+from test_protocol import build_party_data  # tests/ is on sys.path under pytest
 
 # The TLS contexts are stdlib ssl, but the test certificates are minted with
 # the optional `cryptography` package (like tests/test_keyagree.py).
